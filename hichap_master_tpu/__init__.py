@@ -1,4 +1,4 @@
-"""hichap_master_tpu — a TPU-native (JAX/XLA/Pallas) diploid Hi-C analysis framework.
+"""hichap_master_tpu — a JAX diploid Hi-C analysis framework for one GPU.
 
 A ground-up rebuild of the capabilities of HiCHap (Prayforhanluo/HiCHap_master):
 haplotype-resolved and traditional Hi-C processing — genome rebuild from phased
@@ -9,7 +9,7 @@ imputation and two-step bias correction, cooler-compatible persistence, and
 structure analysis (compartments / TADs / loops) with allelic-specificity tests.
 
 Unlike the reference (a Python-2 pipeline of per-line loops and dense numpy),
-the numerical core here is designed for TPU: batched padded contact tensors,
+the numerical core here runs on an accelerator: batched padded contact tensors,
 jitted balancing iterations, scan-based HMMs, stencil loop statistics, and
 pjit/shard_map sharding of the chromosome batch over a device mesh.
 """

@@ -1,5 +1,7 @@
 """hichap-tpu command line — sub-command parity with ``scripts/hichap``.
 
+(The command keeps its historical name; the program runs on a GPU.)
+
 The reference CLI (scripts/hichap:11-437) exposes eight sub-commands coupled
 by a workspace directory convention; all eight exist here with the same
 names, flags and defaults, plus analysis sub-commands (``compartment``,
@@ -46,7 +48,7 @@ def _ws(args, key):
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="hichap-tpu",
-        description="TPU-native diploid Hi-C analysis framework")
+        description="JAX diploid Hi-C analysis framework")
     parser.add_argument("-v", "--version", action="version",
                         version="%(prog)s 0.1.0")
     sub = parser.add_subparsers(dest="command")
@@ -223,6 +225,9 @@ def run(argv=None) -> int:
         return 1
     os.makedirs(args.workspace, exist_ok=True)
     setup_logging(os.path.join(args.workspace, args.logfile))
+    from .utils.device import setup_compile_cache
+
+    setup_compile_cache()
     log.log(21, "hichap-tpu %s args: %s", args.command, vars(args))
 
     stage_out_dir = None

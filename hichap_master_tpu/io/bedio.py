@@ -2,7 +2,8 @@
 
 The reference streams bed lines one at a time through Python string splits
 (HiCHap/matrixBuilding.py:567-603).  Here files parse into columnar numpy
-arrays with pandas' C reader, ready for chunked device scatter-adds.
+arrays (native scanner, plain Python fallback), ready for chunked
+binning.
 
 Formats (produced by the filtering layer, see HiCHap/filtering.py:16-47):
   * traditional valid bed — 15 or 23 tab-separated columns; matrix building
@@ -19,7 +20,6 @@ import os
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
-import pandas as pd
 
 from ..core.genome import Genome, strip_chr
 
@@ -27,65 +27,43 @@ TAG_BOTH, TAG_R1, TAG_R2 = 0, 1, 2
 _TAG_MAP = {"Both": TAG_BOTH, "R1": TAG_R1, "R2": TAG_R2}
 
 
-def _chrom_index(raw: pd.Series, label_to_idx: Dict[str, int]) -> np.ndarray:
+def _chrom_index(raw: Sequence[str], label_to_idx: Dict[str, int]) -> np.ndarray:
     """Chromosome labels → registry indices (-1 = unknown), matching the
     reference's tolerance of both ``chr1`` and ``1`` spellings.  The lookup
-    runs per CATEGORY (a few dozen distinct labels), not per row — on
-    multi-million-row beds the old per-element regex replace + map was a
-    measurable slice of ingestion."""
-    cat = raw.astype("category")
+    runs per distinct label (a few dozen), not per row."""
+    if not len(raw):
+        return np.zeros(0, np.int32)
+    uniq, inv = np.unique(np.asarray(raw, dtype=str), return_inverse=True)
     table = np.asarray(
-        [label_to_idx.get(c[3:] if isinstance(c, str) and c.startswith("chr")
-                          else c, -1)
-         for c in cat.cat.categories], np.int32)
-    codes = cat.cat.codes.to_numpy()
-    if table.size == 0:
-        return np.full(codes.size, -1, np.int32)
-    return np.where(codes >= 0, table[np.clip(codes, 0, None)],
-                    np.int32(-1))
+        [label_to_idx.get(c[3:] if c.startswith("chr") else c, -1)
+         for c in uniq.tolist()], np.int32)
+    return table[inv.reshape(-1)]
 
 
 def label_index(genome: Genome) -> Dict[str, int]:
     return {c: i for i, c in enumerate(genome.labels)}
 
 
-# valid-bed rows are ragged (15 or 23 tab-separated columns); the pandas C
-# engine requires ``names`` to match the WIDEST row in the block, so each
-# block sniffs its width (a tab count) before parsing.  Only columns
-# 1/6/8/13 are consumed (matrixBuilding.py:575-586).
-_VALID_BED_USECOLS = [1, 6, 8, 13]
-
-
-def _read_valid_block(lines: List[str], width: int):
-    import io as _io
-
-    return pd.read_csv(_io.StringIO("".join(lines)), sep="\t", header=None,
-                       names=list(range(width)),
-                       usecols=_VALID_BED_USECOLS,
-                       dtype={1: "category", 6: np.int64, 8: "category",
-                              13: np.int64},
-                       engine="c")
+def _split_rows(lines, min_fields: int) -> List[List[str]]:
+    """Tab-split non-blank lines; a row short of ``min_fields`` raises
+    (the fallback parsers reject malformed rows the native scanner
+    drops)."""
+    rows = [ln.rstrip("\r\n").split("\t") for ln in lines if ln.strip()]
+    if rows and min(map(len, rows)) < min_fields:
+        raise ValueError(f"bed row with fewer than {min_fields} columns")
+    return rows
 
 
 def _parse_valid_lines(lines: List[str], idx):
-    """Parse one block of valid-bed lines with the pandas C reader (~3x
-    the per-line Python split loop this replaced).
-
-    The width is sniffed from the first line only — real files are
-    uniform; the C engine raises if a later row is WIDER than ``names``,
-    in which case the block re-parses at its true maximum width (short
-    rows just pad with NaN, never in the 4 consumed columns)."""
-    width = max(15, lines[0].count("\t") + 1)
-    try:
-        df = _read_valid_block(lines, width)
-    except pd.errors.ParserError:
-        width = max(15, max(ln.count("\t") for ln in lines) + 1)
-        df = _read_valid_block(lines, width)
-    c1 = _chrom_index(df[1], idx)
-    c2 = _chrom_index(df[8], idx)
+    """Parse one block of valid-bed lines (15 or 23 columns; only columns
+    1/6/8/13 are consumed, matrixBuilding.py:575-586)."""
+    rows = _split_rows(lines, 14)
+    c1 = _chrom_index([r[1] for r in rows], idx)
+    c2 = _chrom_index([r[8] for r in rows], idx)
+    p1 = np.array([r[6] for r in rows], np.int64)
+    p2 = np.array([r[13] for r in rows], np.int64)
     keep = (c1 >= 0) & (c2 >= 0)
-    return (c1[keep], df[6].to_numpy()[keep],
-            c2[keep], df[13].to_numpy()[keep])
+    return c1[keep], p1[keep], c2[keep], p2[keep]
 
 
 def read_valid_bed(paths: Sequence[str], genome: Genome):
@@ -143,13 +121,12 @@ def iter_valid_bed(paths: Sequence[str], genome: Genome,
 
     Blocks parse through the native one-pass scanner
     (``hicio_parse_valid_chunk``) when the C library is available —
-    measured ~10x the pandas C reader on the 1-core host, where parsing
-    was the e2e ingestion share — with the pandas path as fallback
-    (``HICHAP_NATIVE_BED=0`` forces it; the parity test runs both).
+    parsing is the host ingestion share — with a plain Python parser as
+    fallback (``HICHAP_NATIVE_BED=0`` forces it; the parity test runs both).
 
     Malformed rows (short, non-numeric or >18-digit positions): the
     native scanner DROPS them — robust continuation on a truncated
-    upstream write — while the pandas fallback raises on the int cast.
+    upstream write — while the fallback raises on them.
     Well-formed inputs parse identically (pinned by the parity tests);
     the divergence is only in failure handling."""
     idx = label_index(genome)
@@ -173,8 +150,8 @@ def iter_valid_bed(paths: Sequence[str], genome: Genome,
 
 
 # Streaming chunk size (rows) for the allelic readers.  Host memory per
-# in-flight chunk is ~40 B/row of columnar arrays plus pandas' parse
-# buffer, so the default 2^20 rows bounds the reader at tens of MB no
+# in-flight chunk is ~40 B/row of columnar arrays plus the parse buffer,
+# so the default 2^20 rows bounds the reader at tens of MB no
 # matter how large the bed is (the reference streams the same way,
 # matrixBuilding.py:1081-1094).  HICHAP_ALLELIC_CHUNK overrides (tests
 # force it to single digits to prove chunk-boundary independence).
@@ -187,16 +164,15 @@ def iter_allelic_bed(paths: Sequence[str], genome: Genome, with_tag: bool,
     """Stream (c1, p1, c2, p2[, tag]) chunks from allelic-bed files with
     bounded host memory.  Blocks parse through the native one-pass
     scanner (``hicio_parse_allelic_chunk``) when the C library is
-    available — the pandas C reader was the dominant share of the
-    diploid ingestion passes — with pandas as fallback
+    available, with a plain Python parser as fallback
     (``HICHAP_NATIVE_BED=0`` forces it; the parity test runs both)."""
     idx = label_index(genome)
-    rows = chunk_rows or _allelic_chunk_rows()
+    rows_per = chunk_rows or _allelic_chunk_rows()
     if os.environ.get("HICHAP_NATIVE_BED", "1") != "0":
         from .native import get_lib, parse_allelic_chunk
 
         if get_lib() is not None:  # decide BEFORE yielding any chunk
-            read_bytes = max(min(rows * 40, 1 << 26), 1 << 16)  # ~40 B/row
+            read_bytes = max(min(rows_per * 40, 1 << 26), 1 << 16)
             for path in paths:
                 if os.path.getsize(path) == 0:
                     continue
@@ -204,33 +180,33 @@ def iter_allelic_bed(paths: Sequence[str], genome: Genome, with_tag: bool,
                     out = parse_allelic_chunk(buf, genome.labels, with_tag)
                     # honor the chunk_rows contract exactly (tests force
                     # single-digit rows to prove boundary independence)
-                    for s in range(0, len(out[0]), rows):
-                        yield tuple(a[s:s + rows] for a in out)
+                    for s in range(0, len(out[0]), rows_per):
+                        yield tuple(a[s:s + rows_per] for a in out)
             return
-    # with_tag: no usecols — pandas then pads tag-less (4-column) rows
-    # with NaN (→ tag -1 below) instead of raising; the native scanner
-    # applies the same optional-tag rule
-    usecols = None if with_tag else [0, 1, 2, 3]
-    names = ["c1", "p1", "c2", "p2", "tag"][: 5 if with_tag else 4]
-    dtype = {"c1": "category", "p1": np.int64, "c2": "category",
-             "p2": np.int64, "tag": "category"}
+    # with_tag: tag-less (4-column) rows read as tag -1, the native
+    # scanner's optional-tag rule
+    import itertools
+
     for path in paths:
         if os.path.getsize(path) == 0:
             continue
-        for df in pd.read_csv(path, sep="\t", header=None, usecols=usecols,
-                              names=names, dtype=dtype, engine="c",
-                              chunksize=rows):
-            c1 = _chrom_index(df["c1"], idx)
-            c2 = _chrom_index(df["c2"], idx)
-            keep = (c1 >= 0) & (c2 >= 0)
-            out = (c1[keep], df["p1"].to_numpy()[keep],
-                   c2[keep], df["p2"].to_numpy()[keep])
-            if with_tag:
-                tag_codes = df["tag"].map(_TAG_MAP).astype("float64")
-                tag = tag_codes.fillna(-1).astype(np.int8).to_numpy()[keep]
-                yield out + (tag,)
-            else:
-                yield out
+        with open(path) as fh:
+            while True:
+                lines = list(itertools.islice(fh, rows_per))
+                if not lines:
+                    break
+                rows = _split_rows(lines, 4)
+                c1 = _chrom_index([r[0] for r in rows], idx)
+                c2 = _chrom_index([r[2] for r in rows], idx)
+                keep = (c1 >= 0) & (c2 >= 0)
+                out = (c1[keep], np.array([r[1] for r in rows], np.int64)[keep],
+                       c2[keep], np.array([r[3] for r in rows], np.int64)[keep])
+                if with_tag:
+                    tag = np.array([_TAG_MAP.get(r[4], -1) if len(r) > 4
+                                    else -1 for r in rows], np.int8)
+                    yield out + (tag[keep],)
+                else:
+                    yield out
 
 
 def discover_allelic_beds(bed_path: str) -> Dict[str, List[str]]:

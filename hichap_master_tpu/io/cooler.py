@@ -1,4 +1,4 @@
-"""Cooler-format HDF5 persistence, implemented directly on h5py.
+"""Cooler-format HDF5 persistence on the built-in HDF5 subset (io/hdf5.py).
 
 The reference delegates to the ``cooler`` package (HiCHap/matrixBuilding.py:
 100-303 ``NPZ2Cooler``); that package is not part of this framework's
@@ -15,6 +15,11 @@ Layout parity with the reference:
   * raw matrices store int32 counts, corrected matrices float64
     (matrixBuilding.py:195-198);
   * balancing weights live in ``bins/weight`` like ``cooler balance``.
+
+Files this module writes are read back by ``io/hdf5.py`` alone.  A cooler
+written by another tool may use HDF5 features outside that subset (stock
+``cooler`` writes chunked, compressed pixel tables); those open through
+h5py when it is installed, and fail with a clear message when it is not.
 """
 
 from __future__ import annotations
@@ -23,10 +28,10 @@ import json
 import os
 from typing import Dict, Iterable, List, Mapping, Sequence, Tuple
 
-import h5py
 import numpy as np
 
 from ..core.genome import Genome
+from . import hdf5
 
 _FORMAT = "HDF5::Cooler"
 _FORMAT_VERSION = 3
@@ -36,11 +41,9 @@ _GEN = "hichap_master_tpu"
 # f32 square).  Below this, COO pixels are scattered into a dense host array
 # (cooler pixels are unique -> pure assignment) and the *upper triangle* is
 # shipped in the narrowest dtype that holds the counts, with cast+symmetrize
-# on device.  Above it, pixels upload as COO and scatter on device.  The cap
-# exists because XLA lowers TPU scatter-add to a serialized per-update loop:
-# a ~2.4M-pixel scatter measured ~140 s on a v5e where the dense upload of
-# the same matrix is ~2 s over a 40 MB/s link (round-4 e2e,
-# matrix.ice.500000.gw) — so dense wins everywhere it fits.
+# on device.  Above it, pixels upload as COO and scatter on device.  The
+# crossover between host densify and device scatter-add is not measured on
+# the H100; the cap is kept as it was set for the first accelerator.
 _DENSE_UPLOAD_MAX = int(os.environ.get(
     "HICHAP_DENSE_UPLOAD_MAX", str(512 << 20)))
 
@@ -101,6 +104,21 @@ def _dense_device_sym(rows, cols, vals, P: int):
     return _sym_cast_device(jnp.asarray(M_host))
 
 
+def _open(path: str, mode: str = "r"):
+    """Open with the built-in HDF5 subset; fall back to h5py for files
+    that other tools wrote with features outside it."""
+    try:
+        return hdf5.File(path, mode)
+    except hdf5.Unsupported as e:
+        try:
+            import h5py
+        except ImportError:
+            raise RuntimeError(
+                f"{path}: {e} is outside the HDF5 subset this package "
+                "reads without h5py; install h5py to open this file") from e
+        return h5py.File(path, mode)
+
+
 def _uri(path_or_uri: str) -> Tuple[str, str]:
     if "::" in path_or_uri:
         path, grp = path_or_uri.split("::", 1)
@@ -109,7 +127,7 @@ def _uri(path_or_uri: str) -> Tuple[str, str]:
 
 
 def list_resolutions(path: str) -> List[int]:
-    with h5py.File(path, "r") as f:
+    with _open(path, "r") as f:
         out = []
         for k in f.keys():
             try:
@@ -248,7 +266,7 @@ class CoolerWriter:
         n_bins = len(starts)
         offs = self._chrom_offsets()
 
-        with h5py.File(path, mode) as f:
+        with _open(path, mode) as f:
             if grp_name in f and grp_name != "/":
                 del f[grp_name]
             grp = f.require_group(grp_name)
@@ -341,7 +359,7 @@ class CoolerReader:
             grp = f"/{res}"
         self.path = path
         self.grp = grp
-        with h5py.File(path, "r") as f:
+        with _open(path, "r") as f:
             g = f[self.grp]
             names = g["chroms/name"][:]
             self.chromnames: List[str] = [
@@ -367,7 +385,7 @@ class CoolerReader:
         return Genome(self.lengths, chroms or ())
 
     def bins_weight(self, label: str | None = None) -> np.ndarray:
-        with h5py.File(self.path, "r") as f:
+        with _open(self.path, "r") as f:
             g = f[self.grp]
             w = g["bins/weight"][:]
         if label is None:
@@ -380,7 +398,7 @@ class CoolerReader:
         """The whole pixel table as (bin1, bin2, count) in cooler bin ids —
         the block-sparse entry path (genome-wide matrices too large to
         densify)."""
-        with h5py.File(self.path, "r") as f:
+        with _open(self.path, "r") as f:
             g = f[self.grp]
             return (g["pixels/bin1_id"][:], g["pixels/bin2_id"][:],
                     g["pixels/count"][:])
@@ -396,7 +414,7 @@ class CoolerReader:
         s2, e2 = int(self.chrom_offset[cj]), int(self.chrom_offset[cj + 1])
         n1, n2 = e1 - s1, e2 - s2
         out = np.zeros((n1, n2), dtype=np.float64)
-        with h5py.File(self.path, "r") as f:
+        with _open(self.path, "r") as f:
             g = f[self.grp]
             lo, hi = self._row_slice(g, s1, e1)
             b1 = g["pixels/bin1_id"][lo:hi]
@@ -425,7 +443,7 @@ class CoolerReader:
         raw coolers) so narrow-wire consumers can pick their own width."""
         ci = self.chromnames.index(label)
         s1, e1 = int(self.chrom_offset[ci]), int(self.chrom_offset[ci + 1])
-        with h5py.File(self.path, "r") as f:
+        with _open(self.path, "r") as f:
             g = f[self.grp]
             lo, hi = self._row_slice(g, s1, e1)
             b1 = g["pixels/bin1_id"][lo:hi]
@@ -458,9 +476,8 @@ class CoolerReader:
         P = padded or pad_to_shape(n)
         nnz = len(vals)
         if P * P * 4 <= _DENSE_UPLOAD_MAX:
-            # densify host-side and upload dense: XLA lowers TPU scatter to a
-            # serialized per-update loop, so device scatter only wins when the
-            # dense square is too big to ship at all (see _DENSE_UPLOAD_MAX).
+            # densify host-side and upload dense; device scatter takes over
+            # when the dense square is too big to ship (_DENSE_UPLOAD_MAX)
             M = _dense_device_sym(rows, cols, vals, P)
         else:
             # sparse (fine resolutions): COO upload beats shipping N² zeros;
@@ -491,7 +508,7 @@ class CoolerReader:
 
         from ..core.contacts import pad_to_shape
 
-        with h5py.File(self.path, "r") as f:
+        with _open(self.path, "r") as f:
             g = f[self.grp]
             b1 = g["pixels/bin1_id"][:]
             b2 = g["pixels/bin2_id"][:]
@@ -500,8 +517,7 @@ class CoolerReader:
         P = padded or pad_to_shape(S)
         nnz = len(v)
         if P * P * 4 <= _DENSE_UPLOAD_MAX:
-            # host densify + narrow-dtype upload; device scatter serializes
-            # on TPU (see _DENSE_UPLOAD_MAX above).
+            # host densify + narrow-dtype upload (see _DENSE_UPLOAD_MAX)
             return _dense_device_sym(b1, b2, v, P), S
         cap = 1 << max(nnz - 1, 1).bit_length()
         r = np.zeros(cap, np.int64)
@@ -530,7 +546,7 @@ class CoolerReader:
         )
 
     def set_weights(self, weights: np.ndarray) -> None:
-        with h5py.File(self.path, "a") as f:
+        with _open(self.path, "a") as f:
             g = f[self.grp]
             if "weight" in g["bins"]:
                 del g["bins"]["weight"]

@@ -143,7 +143,7 @@ def load_allelic_bed(path: str):
     int32 codes into ``labels``, numerics as int64, the candidate tag as
     uint8 0/1/2) — see native/hicio.cpp ``hicio_abed_*``.  Returns None
     when the library is missing or the file violates the strict 15/23
-    layout (caller falls back to the ragged-tolerant pandas reader)."""
+    layout (caller falls back to the ragged-tolerant Python reader)."""
     import numpy as np
 
     lib = get_lib()
@@ -184,7 +184,7 @@ def load_allelic_bed(path: str):
 def parse_allelic_chunk(buf: bytes, labels: Sequence[str], with_tag: bool):
     """Parse a complete-lines block of allelic-bed text → (c1, p1, c2,
     p2[, tag]) via the native scanner; None when the library is missing
-    (caller falls back to pandas)."""
+    (caller falls back to the Python parser)."""
     import numpy as np
 
     lib = get_lib()
@@ -332,11 +332,11 @@ def gw_accumulator() -> Optional[GwAccumulator]:
 
 def parse_valid_chunk(buf: bytes, labels: Sequence[str]):
     """Parse a complete-lines block of valid-bed text → (c1, p1, c2, p2)
-    numpy columns via the native scanner (~10x the pandas C reader on the
-    1-core host: one pass, no DataFrame, no category machinery).
+    numpy columns via the native scanner (one pass, no per-field Python
+    objects).
 
     Returns None when the native library is unavailable (caller falls
-    back to the pandas path)."""
+    back to the Python parser)."""
     import numpy as np
 
     lib = get_lib()

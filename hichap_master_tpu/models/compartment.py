@@ -435,8 +435,9 @@ def _plot_compartment(pdf_path, reader, tracks, res, allelic, ms="IF",
                       extras=None):
     """PDF heatmap + PC track; MS selects the matrix (IF raw / OE / Cor),
     matching StructureFind.py:579-674."""
-    import matplotlib
-    matplotlib.use("Agg")
+    from ..utils.optional import require_matplotlib
+
+    require_matplotlib()
     import matplotlib.pyplot as plt
     from matplotlib.backends.backend_pdf import PdfPages
     from matplotlib.colors import LinearSegmentedColormap

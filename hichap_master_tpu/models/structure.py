@@ -3,7 +3,7 @@
 Mirrors ``HiCHap.StructureFind.StructureFind`` (StructureFind.py:27-106):
 construct with (cooler_fil, Res, Allelic[, GapFile, Loop_ratio,
 Loop_strength]) and call ``run_Compartment`` / ``run_TADs`` / ``run_Loops``.
-Internally dispatches to the TPU models (compartment.py / tads.py /
+Internally dispatches to the device models (compartment.py / tads.py /
 loops.py).
 """
 

@@ -469,8 +469,8 @@ long hicio_parse_allelic_chunk(const char* buf, long nbytes,
         int64_t v1, v2;
         if (!num(fb[1], fe[1], &v1) || !num(fb[3], fe[3], &v2)) continue;
         if (with_tag) {
-            // rows without a tag column keep -1 (the pandas path's
-            // unmapped-tag code), matching the pre-pandas tolerant reader
+            // rows without a tag column keep -1 (the Python fallback's
+            // unmapped-tag code)
             int8_t t = -1;
             if (col == 5) {
                 const size_t tl = static_cast<size_t>(fe[4] - fb[4]);
@@ -764,16 +764,15 @@ int hicio_radix_sort_kv(int64_t* keys, double* vals, int64_t n) {
 // aFiltering (HiCHap/filtering.py:989-1291): one native pass turns the
 // tab text into typed columns — read names as fixed-width bytes, chrom
 // fields as small-int codes into a per-file label table, numeric fields
-// as int64, the candidate tag as 0/1/2 (none/R1/R2).  The pandas typed
-// parse of the same file spends its wall constructing millions of Python
-// str objects (measured 10.7 s of a 16 s stage at 2M pairs); this parse
-// is ~1 s and the assignment then runs on memcmp/int compares.
+// as int64, the candidate tag as 0/1/2 (none/R1/R2).  A typed parse in
+// Python spends its wall constructing millions of str objects; this one
+// does not, and the assignment then runs on memcmp/int compares.
 //
 // Strictness: every row must have exactly 15 or 23 tab-separated fields
 // with integer columns 3,5,6,7,10,12,13,14 (+17,19,20,21 and an R1/R2
 // column 22 on candidate rows); anything else fails the whole parse
 // (rows() returns -1) and the caller falls back to the ragged-tolerant
-// pandas reader.
+// Python reader.
 
 namespace {
 

@@ -1,10 +1,10 @@
-"""ICE (iterative correction) matrix balancing as a jitted on-chip iteration.
+"""ICE (iterative correction) matrix balancing as a jitted device iteration.
 
 The reference shells out to ``cooler balance --ignore-diags 1 [--cis-only]``
 (HiCHap/matrixBuilding.py:699-714, 1536-1544).  Here the same algorithm runs
-as a ``lax.while_loop`` of matvecs on the TPU — the marginal computation is a
-single [N,N]x[N] matvec per iteration, which is exactly what the MXU wants,
-and under ``shard_map`` the row-sum becomes a ``psum`` over the mesh.
+as a ``lax.while_loop`` of matvecs on the device — the marginal computation is
+a single [N,N]x[N] matvec per iteration, and under ``shard_map`` the row-sum
+becomes a ``psum`` over the mesh.
 
 Algorithm (re-derived from cooler's published iterative-correction procedure,
 matching ``cooler balance`` defaults unless noted):
@@ -54,7 +54,7 @@ def ice_balance(M: jnp.ndarray, n: jnp.ndarray, *,
     weights : [N] float, NaN at filtered/padded bins — multiply
               ``M_ij * w_i * w_j`` to get the balanced matrix.
     stats   : dict with 'scale', 'var', 'iters', 'converged'.
-    fast    : store the matrix in bfloat16 for the iteration (halves HBM
+    fast    : store the matrix in bfloat16 for the iteration (halves memory
               traffic — ICE is bandwidth-bound).  Counts above 256 round at
               ~0.4%, so weights deviate from the float32 result by ~1e-3
               relative; use for interactive/exploratory balancing, not for
@@ -91,7 +91,8 @@ def ice_balance(M: jnp.ndarray, n: jnp.ndarray, *,
                            preferred_element_type=jnp.float32) * b
         else:
             # HIGHEST precision: the convergence test (var < 1e-5) sits near
-            # the bf16-MXU noise floor; default precision stalls on TPU.
+            # the noise floor of a bf16 or TF32 product, where default
+            # precision stalls the iteration.
             marg = jnp.dot(M0, b, precision=jax.lax.Precision.HIGHEST) * b
         nz = marg != 0
         mean_nz = masked_mean(marg, nz)

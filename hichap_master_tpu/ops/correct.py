@@ -1,4 +1,4 @@
-"""HiCHap's signature two-step bias correction, as fused jitted TPU ops.
+"""HiCHap's signature two-step bias correction, as fused jitted device ops.
 
 Re-derivation (behavioral spec from the reference, no code reuse):
 

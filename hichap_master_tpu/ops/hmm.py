@@ -75,6 +75,13 @@ def _log_mix(x, means, varis, weights):
     return lse, comp_post
 
 
+# The HMM's products are S x S (S <= 6 states) or reductions over the
+# sequence; at default precision a float32 product may run in TF32 on a
+# GPU (~1e-3 relative), which would move the log-likelihood that EM's
+# stopping rule compares.  Full precision costs nothing at these sizes.
+_HP = jax.lax.Precision.HIGHEST
+
+
 @jax.jit
 def _e_step(X, L, A, pi, means, varis, weights):
     """Batched scaled forward-backward.  Returns sufficient statistics."""
@@ -87,7 +94,7 @@ def _e_step(X, L, A, pi, means, varis, weights):
     def fwd_step(carry, inp):
         alpha_prev = carry
         b_t, m_t = inp
-        raw = (alpha_prev @ A) * b_t
+        raw = jnp.dot(alpha_prev, A, precision=_HP) * b_t
         c = jnp.sum(raw)
         c = jnp.where(c > 0, c, 1.0)
         alpha = raw / c
@@ -117,7 +124,7 @@ def _e_step(X, L, A, pi, means, varis, weights):
         def bwd_step(carry, inp):
             beta_next = carry
             b_next, c_next, m_next = inp
-            beta = (A @ (b_next * beta_next)) / c_next
+            beta = jnp.dot(A, b_next * beta_next, precision=_HP) / c_next
             beta = jnp.where(m_next > 0, beta, jnp.ones_like(beta))
             return beta, beta
 
@@ -148,8 +155,8 @@ def _e_step(X, L, A, pi, means, varis, weights):
     pi_new = gamma[:, 0, :].mean(0)
     gk = gamma[..., None] * comp_post  # [B,T,S,K]
     gk_sum = jnp.einsum("btsk->sk", gk)
-    x_sum = jnp.einsum("btsk,bt->sk", gk, X)
-    x2_sum = jnp.einsum("btsk,bt->sk", gk, X * X)
+    x_sum = jnp.einsum("btsk,bt->sk", gk, X, precision=_HP)
+    x2_sum = jnp.einsum("btsk,bt->sk", gk, X * X, precision=_HP)
     return dict(A_num=A_num, gsum_nolast=gsum_nolast, pi_new=pi_new,
                 gk_sum=gk_sum, x_sum=x_sum, x2_sum=x2_sum,
                 loglik=jnp.sum(loglik))

@@ -2,7 +2,7 @@
 
 The reference assembles each background as hundreds of shifted sparse
 diagonal matrices per window width (HiCHap/StructureFind.py:1645-1800) — an
-O(window²) pass over the band per width.  On TPU the same sums are rectangle
+O(window²) pass over the band per width.  Here the same sums are rectangle
 queries on a summed-area table (two cumsums), so every width costs a handful
 of O(N²) slice-adds and the whole escalation ladder is a single jitted call.
 

@@ -269,7 +269,7 @@ def _escalation_maps_core(D_raw, D_bal, D_exp, e_pix, x_pix, valid,
 
     The per-pixel formulation gathers 5 maps × L levels at every candidate
     pixel (~80M gathers for a dense 10 kb band — measured gather-bound,
-    ~1.3 s/chromosome on v5e).  Here the stopping rule runs on [E, Xp]
+    ~1.3 s/chromosome on the first accelerator).  Here the stopping rule runs on [E, Xp]
     mask maps (a few MB) and per-pixel values gather ONCE at the end —
     identical semantics, ~10× less device time.
     """

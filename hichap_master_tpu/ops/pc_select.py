@@ -2,7 +2,7 @@
 
 ``select_pc_new`` (StructureFind.py:374-423) needs the full correlation and
 O/E matrices; pulling those to host costs seconds per chromosome over a
-PCIe/tunnel link (~150 MB each at 10 kb).  This module evaluates the same
+host link (~150 MB each at 10 kb).  This module evaluates the same
 heuristics as masked reductions on device, so only the chosen signed PC
 (a few KB) ever leaves the chip.  Host-side parity implementation:
 models/compartment.select_pc_new.

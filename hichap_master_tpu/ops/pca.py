@@ -2,10 +2,10 @@
 
 Replaces sklearn ``PCA(n_components=3).fit(Cor)`` (HiCHap/StructureFind.py:
 338-341).  Components are eigenvectors of the column covariance of the
-(row-centered) input; on TPU the default path is blocked subspace iteration
-— k+p matvecs per sweep, all MXU — with an exact ``eigh`` fallback for
-oracle tests.  Signs are unspecified (the reference resolves orientation
-downstream via ``Select_PC_new`` / ``Select_Allelic_PC``).
+(row-centered) input; the default path is blocked subspace iteration — k+p
+matvecs per sweep — with an exact ``eigh`` fallback for oracle tests.
+Signs are unspecified (the reference resolves orientation downstream via
+``Select_PC_new`` / ``Select_Allelic_PC``).
 """
 
 from __future__ import annotations
@@ -43,10 +43,14 @@ def pca_components_subspace(X: jnp.ndarray, n: jnp.ndarray, k: int = 3,
         return Qn
 
     Q = jax.lax.fori_loop(0, iters, body, Q)
-    B = Q.T @ (C @ Q)
+    # HIGHEST: a float32 product may run in TF32 on a GPU (~1e-3 relative),
+    # which would perturb the Ritz values that order near-degenerate PCs;
+    # these products are k+p columns wide, so full precision costs little
+    hp = jax.lax.Precision.HIGHEST
+    B = jnp.dot(Q.T, jnp.dot(C, Q, precision=hp), precision=hp)
     w, V = jnp.linalg.eigh(B)
     order = jnp.argsort(-w)[:k]
-    comps = (Q @ V[:, order]).T
+    comps = jnp.dot(Q, V[:, order], precision=hp).T
     # Normalize (QR keeps orthonormal, but Ritz rotation preserves it anyway).
     comps = comps / jnp.linalg.norm(comps, axis=1, keepdims=True)
     # rank(C) < k (degenerate chromosome: fewer non-gap bins than

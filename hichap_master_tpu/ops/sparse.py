@@ -1,13 +1,13 @@
 """Block-sparse (tiled-COO) genome-wide contact matrices.
 
 Why this exists: the genome-wide contact matrix at 10 kb is ~304k bins for
-hg19; dense float32 would be ~370 GB — unrepresentable on a single TPU
-(16 GB HBM) and even across a v5e-8 slice (128 GB).  The reference sidesteps
+hg19; dense float32 would be ~370 GB — far beyond one accelerator's memory
+(80 GB on an H100) and beyond four of them.  The reference sidesteps
 the problem by restricting genome-wide matrices to coarse resolutions
 (wholeRes >= 500 kb, README.md:312-318) and shelling the balancing out to
 ``cooler balance``, which streams pixels from HDF5 on the host
-(HiCHap/matrixBuilding.py:699-714).  The TPU-native formulation keeps the
-genome-wide matrix **resident in HBM as dense T x T tiles at occupied block
+(HiCHap/matrixBuilding.py:699-714).  Here the genome-wide matrix stays
+**resident in device memory as dense T x T tiles at occupied block
 coordinates** — Hi-C contact mass concentrates near the diagonal, so the
 occupied-tile count grows linearly (band width x genome length), not
 quadratically.
@@ -22,12 +22,12 @@ and contribute their transpose implicitly.  The matvec is then
     y[brow] += tile @ x[bcol]          (all tiles)
     y[bcol] += tile^T @ x[brow]        (off-diagonal tiles)
 
-— batched [K,T,T]x[K,T] contractions (bandwidth-optimal on the MXU/VPU)
-followed by a block-row reduction.  The reduction runs as a one-hot
-[R,K] @ [K,T] matmul by default: on TPU a scatter-add serializes per
-update (PERF.md), while a matmul contraction over the tile axis is exactly
-what GSPMD partitions into a ``psum`` when the tile axis is sharded over a
-device mesh — the same code path scales from one chip to a pod slice.
+— batched [K,T,T]x[K,T] contractions followed by a block-row reduction.
+The reduction runs as a one-hot [R,K] @ [K,T] matmul by default: a matmul
+contraction over the tile axis is exactly what GSPMD partitions into a
+``psum`` when the tile axis is sharded over a device mesh, so the same code
+path runs on one device or several.  Which reduction is fastest on the
+H100 is not measured yet.
 
 The asymmetric variant (``U``/``L`` tile pairs) carries the
 single-triangle-imputed genome-wide haplotype matrix through the reference's
@@ -182,8 +182,8 @@ def _segsum_scan(data: jnp.ndarray, seg: jnp.ndarray, R: int) -> jnp.ndarray:
 
     Traffic-motivated alternative to the one-hot matmul: at hg19 10 kb
     (K ~ 9.5k tiles, R ~ 2.4k block rows) each one-hot reduction reads a
-    ~90 MB [R, K] f32 operand per marginal (and burns 6-pass HIGHEST MXU
-    time); this form moves only a few [K, T] copies (~5 MB each) through
+    ~90 MB [R, K] f32 operand per marginal at full f32 precision; this
+    form moves only a few [K, T] copies (~5 MB each) through
     a gather, a log-depth scan, and two [R+1, T] row gathers.  The sort
     aux (argsort + searchsorted) depends only on the loop-invariant block
     coordinates, so XLA's while-loop LICM hoists it out of the balancing
@@ -219,16 +219,13 @@ def _segsum(data: jnp.ndarray, seg: jnp.ndarray, R: int,
 
 
 def _resolve_reduce() -> str:
-    """Single-chip default reduction strategy (env-overridable for A/B
+    """Single-device default reduction strategy (env-overridable for A/B
     measurement runs without code edits)."""
     import os
 
     env = os.environ.get("HICHAP_ICE_REDUCE", "")
-    if env in ("onehot", "scan", "scatter", "pallas"):
+    if env in ("onehot", "scan", "scatter"):
         return env
-    if (jax.default_backend() == "tpu"
-            and os.environ.get("HICHAP_PALLAS_ICE", "0") == "1"):
-        return "pallas"
     return "onehot"
 
 
@@ -239,20 +236,10 @@ def block_sym_matvec(tiles: jnp.ndarray, brow: jnp.ndarray,
     """y = M @ b for the symmetric block layout; b and y are [R*T].
 
     bfloat16 tiles (the ``fast`` balancing mode) contract with bf16 inputs
-    and float32 accumulation — halves the per-iteration HBM traffic the
+    and float32 accumulation — halves the per-iteration memory traffic the
     matvec is bound by; f32 tiles use HIGHEST precision (the ICE
-    convergence test sits near the bf16-MXU noise floor).
-
-    reduce="pallas" (TPU only) fuses both triangle contributions and the
-    block-row reduction into one streaming pass over the tiles
-    (kernels/pallas_sparse_ice.py).  Measured at hg19 10 kb scale it is
-    SLOWER than the XLA formulation (264 vs 631 matvecs/s amortized —
-    see the kernel docstring for why); it is kept as an opt-in
-    experiment, not a production path."""
-    if reduce == "pallas":
-        from ..kernels.pallas_sparse_ice import block_sym_matvec_pallas
-
-        return block_sym_matvec_pallas(tiles, brow, bcol, b, R=R, T=T)
+    convergence test sits near the noise floor of a bf16 or TF32
+    product)."""
     xb = b.reshape(R, T)
     if tiles.dtype == jnp.bfloat16:
         xb16 = xb.astype(jnp.bfloat16)
@@ -281,25 +268,22 @@ def sparse_ice_balance(tiles: jnp.ndarray, brow: jnp.ndarray,
 
     Same semantics as ``ops.balance.ice_balance`` (cooler-default filters:
     ignore-diags 1, MAD-max 5, min-nnz 10) but the per-iteration marginal is
-    a block matvec whose HBM traffic is proportional to the *occupied tiles*,
+    a block matvec whose memory traffic is proportional to the *occupied tiles*,
     not n² — this is what makes genome-wide 10 kb balancing representable.
     Returns (weights [R*T], stats); weights NaN at filtered bins.
 
     reduce : block-row reduction strategy. ``None`` (default) resolves to
-    ``HICHAP_ICE_REDUCE`` if set (``onehot`` / ``scan`` / ``scatter`` /
-    ``pallas``), else ``"onehot"`` — XLA fuses both triangle contractions
-    into one tile stream and the one-hot reduction rides the MXU, measured
-    631-805 marginals/s at hg19 10 kb (2.4x the Pallas attempt; see
-    kernels/pallas_sparse_ice.py).  ``"scan"`` replaces the ~90 MB one-hot
-    operand per reduction with a compensated prefix over permuted [K, T]
-    contributions (see ``_segsum_scan``).  ``HICHAP_PALLAS_ICE=1`` opts
-    into the Pallas kernel on TPU for comparison runs; the sharded
-    multi-chip path (parallel/sharding.sharded_sparse_ice) pins
+    ``HICHAP_ICE_REDUCE`` if set (``onehot`` / ``scan`` / ``scatter``),
+    else ``"onehot"`` — XLA fuses both triangle contractions into one tile
+    stream followed by a one-hot matmul reduction.  ``"scan"`` replaces
+    the ~90 MB one-hot operand per reduction with a compensated prefix
+    over permuted [K, T] contributions (see ``_segsum_scan``); the
+    sharded multi-device path (parallel/sharding.sharded_sparse_ice) pins
     ``"onehot"`` because GSPMD partitions that matmul contraction into a
     clean psum over the tile axis.
 
     fast : iterate with bfloat16-stored tiles, float32 accumulation (same
-    trade as ``ops.balance.ice_balance(fast=True)``: ~2x less HBM traffic
+    trade as ``ops.balance.ice_balance(fast=True)``: ~2x less memory traffic
     against ~1e-3 relative weight deviation — filters and convergence
     state stay float32).
     """
@@ -532,7 +516,7 @@ def genomewide_correction_coo(rows, cols, vals, alpha: np.ndarray, n: int,
         cor = folded / (f[i] * f[j]),  rescaled to the raw total
 
     The tile layout is the right shape for the ITERATIVE genome-wide ICE
-    (repeated matvecs want MXU tiles), but this correction touches each
+    (repeated matvecs want dense tiles), but this correction touches each
     pixel a constant number of times — and the imputed diploid matrix at
     10 kb carries tens of millions of *scattered* inter pixels, where
     per-occupied-tile dense storage (128x128 f32 per pixel in the worst

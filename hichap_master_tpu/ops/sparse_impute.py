@@ -13,9 +13,9 @@ where CUM is the prefix sum of pixel values in (row, col) lexicographic
 order and lb/ub are binary searches.  That turns a |disk| = pi * L pixel
 gather (~3,100 at 10 kb) into ~2 * (2 * sqrt(L) + 2) ~ 130 searches per
 candidate — and every search is a data-parallel gather chain, so the whole
-vote runs as one jitted TPU dispatch per chunk.
+vote runs as one jitted device dispatch per chunk.
 
-Two TPU-specific choices:
+Two layout choices:
   * the search is a hand-rolled **lexicographic binary search over
     (row, col) int32 pairs** (``lex_searchsorted``) instead of a single
     int64-key ``searchsorted`` — S^2 key space overflows int32 and JAX
@@ -26,7 +26,7 @@ Two TPU-specific choices:
 
 Round 5 added the production variant, ``sparse_impute_vote_rowptr``: a
 row-pointer table restricts each disk-row search to that row's slice of
-the column array, cutting the per-query random-HBM traffic from
+the column array, cutting the per-query random memory traffic from
 log2(nnz) steps x 2 gathers (srows + scols) to log2(max row nnz) steps
 x 1 gather — measured 3.0x at the diploid 10 kb production scale
 (scripts/probe_vote_ab.py, exact output parity).  The lex variant
@@ -111,7 +111,7 @@ class SparseU:
         # row pointers: restrict each disk-row search to that row's slice
         # of the column array — log2(max row nnz) single-gather steps
         # instead of log2(nnz) double-gather (srows+scols) steps, ~4x less
-        # random HBM traffic per query in the pass-3 vote (round 5)
+        # random memory traffic per query in the pass-3 vote
         row_ptr = np.searchsorted(r, np.arange(S + 1, dtype=np.int64))
         self.row_ptr = jnp.asarray(row_ptr.astype(np.int32))
         max_row = int((row_ptr[1:] - row_ptr[:-1]).max()) if S else 0
@@ -129,7 +129,8 @@ def lex_searchsorted(srows: jnp.ndarray, scols: jnp.ndarray,
                      qr: jnp.ndarray, qc: jnp.ndarray,
                      iters: int) -> jnp.ndarray:
     """Left insertion points of (qr, qc) into the lexicographically sorted
-    (srows, scols) pair list — int32 throughout (no int64 keys on TPU)."""
+    (srows, scols) pair list — int32 throughout (no int64 keys with
+    x64 off)."""
     nnz = srows.shape[0]
     lo = jnp.zeros(qr.shape, jnp.int32)
     hi = jnp.full(qr.shape, nnz, jnp.int32)

@@ -1,7 +1,7 @@
 """Device-mesh sharding of the numerical core.
 
 The reference's only parallelism is process fan-out over file chunks
-(SURVEY.md §2.2); the TPU-native scaling axes are:
+(SURVEY.md §2.2); the scaling axes here are:
 
 * **chromosome batch** (the data-parallel analogue) — the padded
   ``[C, N, N]`` batch shards over the ``chrom`` mesh axis; corrections are
@@ -9,10 +9,10 @@ The reference's only parallelism is process fan-out over file chunks
 * **bin dimension** (the sequence/tensor-parallel analogue) — the
   genome-wide matrix block-shards over the ``bins`` axis; balancing
   marginals are matvecs whose contraction XLA partitions with ``psum``
-  collectives over ICI.
+  collectives.
 
 Everything here annotates shardings on the *same* jitted functions used
-single-chip (ops/balance.py, ops/correct.py); GSPMD inserts the
+on one device (ops/balance.py, ops/correct.py); GSPMD inserts the
 collectives.  ``analysis_train_step`` is the "full training step" used by
 ``__graft_entry__.dryrun_multichip``: genome-wide ICE iteration
 (bins-sharded matvec + psum) fused with the per-chromosome two-step

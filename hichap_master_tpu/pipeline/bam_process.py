@@ -17,8 +17,9 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 
 def _mp_ctx():
-    """spawn: fork after jax's threads have started is unsafe, and the
-    workers run host-side code only (no jax import on their path)."""
+    """spawn: fork after jax's threads have started is unsafe; the workers
+    run host-side code only (``host_only_worker`` keeps them off the
+    accelerator)."""
     return multiprocessing.get_context("spawn")
 
 from ..io.fasta import load_snps
@@ -134,7 +135,10 @@ def bam_extract(aln_dir: str, re_dir: str, out_dir: str,
 
     by_tag: Dict[str, List[int]] = {}
     if threads > 1:
-        with ProcessPoolExecutor(threads, mp_context=_mp_ctx()) as ex:
+        from ..utils.device import host_only_worker
+
+        with ProcessPoolExecutor(threads, mp_context=_mp_ctx(),
+                                 initializer=host_only_worker) as ex:
             futs = [(tg, ex.submit(integrate_chunk, f, o, fr, sp, tg, level,
                                    read_len)) for f, o, fr, sp, tg in jobs]
             results = [(tg, fu.result()) for tg, fu in futs]

@@ -26,7 +26,6 @@ import os
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
-import pandas as pd
 
 from ..utils.logging import get_logger
 
@@ -43,35 +42,21 @@ def _classify_block(lines: List[str], prev_key, stats: Dict[str, int],
     the previous block's last record (dedup across block boundaries);
     returns this block's last key.
 
-    Columns parse through the pandas C reader (same ragged-width sniff as
-    the valid-bed fallback reader) — the per-line ``split`` + ``int``
-    loop this replaces was ~70% of the measured 20M-record stage wall."""
-    import io as _io
-
-    import pandas as pd
-
-    def _parse(width):
-        return pd.read_csv(
-            _io.StringIO("".join(lines)), sep="\t", header=None,
-            names=list(range(width)), usecols=[1, 2, 3, 6, 8, 9, 10, 13],
-            dtype={1: object, 2: np.int32, 3: np.int64, 6: np.int64,
-                   8: object, 9: np.int32, 10: np.int64, 13: np.int64},
-            engine="c")
-
-    width = max(15, lines[0].count("\t") + 1)
-    try:
-        df = _parse(width)
-    except pd.errors.ParserError:
-        width = max(15, max(ln.count("\t") for ln in lines) + 1)
-        df = _parse(width)
-    c1 = df[1].to_numpy()
-    s1 = df[2].to_numpy()
-    p1 = df[3].to_numpy()
-    c2 = df[8].to_numpy()
-    s2 = df[9].to_numpy()
-    p2 = df[10].to_numpy()
-    f1 = df[6].to_numpy()
-    f2 = df[13].to_numpy()
+    Columns come from one tab split per line; only the key, strand and
+    fragment columns are converted (the whole-line ``int`` loop this
+    replaces was ~70% of the measured 20M-record stage wall)."""
+    rows = [ln.split("\t", 14)[:14] for ln in lines]
+    if min(map(len, rows)) < 14:
+        raise ValueError("valid bed row with fewer than 14 columns")
+    cols = list(zip(*rows))
+    c1 = np.array(cols[1], dtype=object)
+    s1 = np.array(cols[2], np.int32)
+    p1 = np.array(cols[3], np.int64)
+    c2 = np.array(cols[8], dtype=object)
+    s2 = np.array(cols[9], np.int32)
+    p2 = np.array(cols[10], np.int64)
+    f1 = np.array(cols[6], np.int64)
+    f2 = np.array(cols[13], np.int64)
 
     n = len(lines)
     stats["Total"] += n
@@ -309,65 +294,44 @@ _AF_FLOAT_COLS = (17, 19, 20, 21)                 # NaN on 15-column rows
 _AF_USECOLS = tuple(sorted(_AF_OBJ_COLS + _AF_INT_COLS + _AF_FLOAT_COLS))
 
 
-def _load_frame_pandas(source):
-    """Ragged-tolerant pandas parse + encode (fallback when the native
-    library is unavailable or the file violates the strict 15/23 layout):
-    every row 15 or 23 wide, NaN tails on the short ones, then re-encoded
-    to the same typed columns the native path produces."""
-    import pandas as pd
-
-    dtypes = {**{c: object for c in _AF_OBJ_COLS},
-              **{c: np.int64 for c in _AF_INT_COLS},
-              **{c: np.float64 for c in _AF_FLOAT_COLS}}
-    try:
-        df = pd.read_csv(source, sep="\t", header=None,
-                         names=list(range(23)), usecols=list(_AF_USECOLS),
-                         dtype=dtypes, engine="c", low_memory=False)
-    except pd.errors.EmptyDataError:
-        df = pd.DataFrame({i: pd.Series(dtype=dtypes[i])
-                           for i in _AF_USECOLS})
-    except pd.errors.ParserError:
-        # the C engine rejects usecols indices past the physical width when
-        # EVERY row is 15 columns (no candidate rows anywhere — common for
-        # small chunks); re-read full-width (missing tails pad NaN) and
-        # select after the fact.  Seekable sources rewind first; a
-        # non-seekable stream was consumed by the failed attempt, so the
-        # re-read sees EOF — treat that like an empty file rather than
-        # letting EmptyDataError escape (review find).
-        if hasattr(source, "seek"):
-            source.seek(0)
-        try:
-            df = pd.read_csv(source, sep="\t", header=None,
-                             names=list(range(23)), dtype=dtypes,
-                             engine="c", low_memory=False)[list(_AF_USECOLS)]
-        except pd.errors.EmptyDataError:
-            df = pd.DataFrame({i: pd.Series(dtype=dtypes[i])
-                               for i in _AF_USECOLS})
-    d = {c: df[c].to_numpy() for c in _AF_USECOLS}
-    n = d[0].size
-    names = d[0].astype("S") if n else np.empty(0, "S1")
-    c15v = d[15]
-    m15 = pd.notna(c15v)
-    pool = np.concatenate([d[1], d[8], c15v[m15]])
-    labels = sorted(set(pool.tolist()))
-    lab = np.array(labels + [""], dtype=object)
+def _load_frame_fallback(source):
+    """Ragged-tolerant parse + encode (fallback when the native library is
+    unavailable or the file violates the strict 15/23 layout): rows up to
+    23 wide, missing tails empty, then encoded to the same typed columns
+    the native path produces.  ``source`` is a path or a text stream."""
+    if hasattr(source, "read"):
+        lines = source.read().splitlines()
+    else:
+        with open(source) as fh:
+            lines = fh.read().splitlines()
+    rows = [ln.split("\t")[:23] for ln in lines if ln.strip()]
+    if rows and min(map(len, rows)) < 15:
+        raise ValueError("allelic bed row with fewer than 15 columns")
+    rows = [r + [""] * (23 - len(r)) for r in rows]
+    d = (list(zip(*rows)) if rows else [()] * 23)
+    n = len(rows)
+    names = np.array(d[0]).astype("S") if n else np.empty(0, "S1")
+    c15v = np.array(d[15], dtype=object)
+    m15 = c15v != ""
+    labels = sorted(set(d[1]) | set(d[8]) | set(c15v[m15].tolist()))
+    lab = np.array(labels, dtype=object)
     c15 = np.full(n, -1, np.int32)
     if m15.any():
-        c15[m15] = np.searchsorted(lab[:-1], c15v[m15])
+        c15[m15] = np.searchsorted(lab, c15v[m15])
     tag = np.zeros(n, np.uint8)
-    t22 = d[22]
+    t22 = np.array(d[22], dtype=object)
     tag[t22 == "R1"] = 1
     tag[t22 == "R2"] = 2
     cols = {0: names, 15: c15, 22: tag}
     for c in (1, 8):
-        cols[c] = (np.searchsorted(lab[:-1], d[c]).astype(np.int32)
-                   if n else np.empty(0, np.int32))
+        cols[c] = np.searchsorted(lab, np.array(d[c], dtype=object)).astype(
+            np.int32) if n else np.empty(0, np.int32)
     for c in _AF_INT_COLS:
-        cols[c] = d[c]
+        cols[c] = np.array(d[c], np.int64)
+    has = tag > 0
     for c in _AF_FLOAT_COLS:
         v = np.zeros(n, np.int64)
-        has = tag > 0
-        v[has] = d[c][has].astype(np.int64)
+        v[has] = np.array(d[c], dtype=object)[has].astype(np.int64)
         cols[c] = v
     return cols, labels
 
@@ -382,11 +346,10 @@ def _load_frame(path: str):
     columns round-trip to the same bytes (all upstream writers emit plain
     ints) — pinned by the vectorized-vs-rowwise parity test.
 
-    The native hicio columnizer does the parse in one C++ pass (the
-    all-pandas typed parse spent 10.7 s of a 16 s stage at 2M pairs
-    building Python str objects; a pyarrow fast path was tried and
-    REJECTED for the same reason — its arrow->object conversion cost more
-    than the parse saved).  Rows load in INPUT order — the columnar path
+    The native hicio columnizer does the parse in one C++ pass (a
+    typed parse in Python spends its wall building str objects; a
+    pyarrow fast path was tried and REJECTED — its arrow->object conversion cost more than the parse
+    saved).  Rows load in INPUT order — the columnar path
     joins through an argsort permutation, so no column is ever
     reordered."""
     from ..io.native import load_allelic_bed
@@ -394,7 +357,7 @@ def _load_frame(path: str):
     got = load_allelic_bed(path)
     if got is not None:
         return got
-    return _load_frame_pandas(path)
+    return _load_frame_fallback(path)
 
 
 def _sorted_member(a: np.ndarray, b: np.ndarray):
@@ -419,23 +382,20 @@ def _candidate_ok_vec(df, idx):
 
 
 def _write_class(out, cols, tag=None, ids=None) -> None:
-    """Bulk-append an output class: columns (+optional trailing tag,
-    optional leading pair-id) via the pandas CSV writer."""
-    import pandas as pd
-
-    data = {}
-    j = 0
+    """Bulk-append an output class: tab-joined columns (+optional trailing
+    tag, optional leading pair-id)."""
+    fields = []
     if ids is not None:
         if ids.dtype.kind == "S":  # fixed-width names -> text
             ids = ids.astype("U")
-        data[j] = ids
-        j += 1
-    for a in cols:
-        data[j] = a
-        j += 1
+        fields.append(ids)
+    fields.extend(cols)
+    if not len(fields[0]):
+        return
+    text = [np.asarray(a).astype(str) for a in fields]
     if tag is not None:
-        data[j] = np.full(len(cols[0]), tag, dtype=object)
-    pd.DataFrame(data).to_csv(out, sep="\t", header=False, index=False)
+        text.append(np.full(len(cols[0]), tag))
+    out.write("".join("\t".join(r) + "\n" for r in zip(*text)))
 
 
 def _both_marks_arrays(m_df, mi, p_df, pi):

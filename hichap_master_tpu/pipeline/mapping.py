@@ -30,9 +30,6 @@ import subprocess
 import time
 from concurrent.futures import ProcessPoolExecutor, as_completed
 
-# fork after jax's threads have started is unsafe; the workers only run
-# host-side code, so spawn is cheap (no jax import in the worker path)
-_MP = multiprocessing.get_context("spawn")
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -40,9 +37,14 @@ import numpy as np
 
 from ..core.genome import strip_chr
 from ..io.sam import AlnRecord, write_sam
+from ..utils.device import host_only_worker
 from ..utils.logging import get_logger
 
 log = get_logger(__name__)
+
+# fork after jax's threads have started is unsafe; the workers run host
+# code only (host_only_worker keeps them off the accelerator)
+_MP = multiprocessing.get_context("spawn")
 
 MIN_OUTPUT_BYTES = 100  # mapping.py:330 (outputs smaller than this = failed)
 
@@ -78,7 +80,8 @@ class RetryingExecutor:
     def run(self, tasks: List[Task]) -> None:
         pending = list(tasks)
         while pending:
-            with ProcessPoolExecutor(self.workers, mp_context=_MP) as ex:
+            with ProcessPoolExecutor(self.workers, mp_context=_MP,
+                                     initializer=host_only_worker) as ex:
                 futs = {ex.submit(t.fn, *t.args): t for t in pending}
                 for fu in as_completed(futs):
                     t = futs[fu]

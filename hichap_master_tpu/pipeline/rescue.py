@@ -114,7 +114,10 @@ def cutting_reads_to_remapping(aln_dir: str, out_dir: str, enzyme: str,
         # Cutting_Reads_To_ReMapping (fastqPlus.py:156-234)
         import multiprocessing as mp
 
-        with mp.get_context("spawn").Pool(min(threads, len(jobs))) as pool:
+        from ..utils.device import host_only_worker
+
+        with mp.get_context("spawn").Pool(
+                min(threads, len(jobs)), initializer=host_only_worker) as pool:
             counts = pool.starmap(
                 rescue_sam, [(a, o, junc) for a, o in jobs])
     else:

@@ -2,7 +2,7 @@
 
 These are *independent re-implementations written in the reference's
 per-element style* (HiCHap/matrixBuilding.py), used only to validate the
-batched/jitted TPU ops at tight tolerances.  Slow on purpose — clarity over
+batched/jitted device ops at tight tolerances.  Slow on purpose — clarity over
 speed.
 """
 
@@ -177,3 +177,72 @@ def synthetic_contact_matrix(rng, n, decay=1.0, gap_frac=0.1, scale=50.0):
         M[gaps, :] = 0
         M[:, gaps] = 0
     return M
+
+
+# ----------------------------------------------------------- compartments
+def oracle_distance_decay(M, G):
+    """StructureFind.py:201-271 re-derived in numpy: mean contact per
+    distance, excluding gap columns ``G`` from numerator and pair count."""
+    size = M.shape[0]
+    b1, b2 = np.nonzero(M)
+    IF = M[b1, b2]
+    keep = ~np.isin(b2, G)
+    w = np.hstack([IF[keep], [0]])
+    d = np.hstack([np.abs(b2[keep] - b1[keep]), [size]])
+    db = np.bincount(d, w)
+    for i in range(size):
+        if i == 0:
+            gap_num = ((G >= 0) & (G <= size - 1)).sum()
+            bn = size - gap_num
+        else:
+            gs = ((G >= 0) & (G <= size - 1 - i)).sum()
+            ge = ((G >= i) & (G <= size - 1)).sum()
+            bn = 2.0 * (size - i) - gs - ge
+        if bn > 0:
+            db[i] = db[i] / bn
+    return db[:size]
+
+
+def oracle_compartment(M, k=3):
+    """Gap rule, O/E, correlation and top-``k`` PCs of one raw matrix in
+    float64 (StructureFind.py:201-341): returns (gap bool [n], oe [n, n],
+    cor [g, g], pcs [k, g]) with PCs as unit eigenvectors, largest first."""
+    n = M.shape[0]
+    gap = (M != 0).sum(0) / n <= 0.05
+    decline = oracle_distance_decay(M, np.flatnonzero(gap)).copy()
+    decline[decline == 0] = decline[np.nonzero(decline)].min()
+    i = np.arange(n)
+    oe = np.where(M != 0, M / decline[np.abs(i[:, None] - i[None, :])], 0.0)
+    ng = np.flatnonzero(~gap)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        cor = np.corrcoef(oe[:, ng], rowvar=False)
+    cor[np.isnan(cor)] = 0
+    cor[np.isinf(cor)] = 1
+    w, V = np.linalg.eigh(cor)
+    pcs = V[:, np.argsort(-w)[:k]].T
+    return gap, oe, cor, pcs
+
+
+# -------------------------------------------------------------------- HMM
+def oracle_gmmhmm_loglik(seqs, A, pi, means, varis, weights):
+    """log P(seqs) under a Gaussian-mixture HMM: the forward algorithm in
+    log space, float64, one time step at a time."""
+    def lse(x, axis=None):
+        m = np.max(x, axis=axis, keepdims=True)
+        m = np.where(np.isfinite(m), m, 0.0)
+        return np.squeeze(m, axis) + np.log(np.sum(np.exp(x - m), axis))
+
+    with np.errstate(divide="ignore"):
+        logA, logpi = np.log(A), np.log(pi)
+    total = 0.0
+    for x in seqs:
+        x = np.asarray(x, float)
+        lp = (-0.5 * (x[:, None, None] - means) ** 2 / varis
+              - 0.5 * np.log(varis) - 0.5 * np.log(2 * np.pi)
+              + np.log(weights))
+        logb = lse(lp, axis=2)
+        la = logpi + logb[0]
+        for t in range(1, len(x)):
+            la = lse(la[:, None] + logA, axis=0) + logb[t]
+        total += lse(la)
+    return float(total)

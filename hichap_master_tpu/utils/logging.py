@@ -17,8 +17,13 @@ def get_logger(name: str = "hichap_master_tpu") -> logging.Logger:
 
 
 def setup_logging(logfile: str | None = None, console: bool = True) -> logging.Logger:
+    """Install the file/console handlers, replacing the ones an earlier
+    call installed (one process may run several CLI commands)."""
     root = logging.getLogger()
     root.setLevel(MAIN)
+    for h in [h for h in root.handlers if getattr(h, "_hichap", False)]:
+        root.removeHandler(h)
+        h.close()
     fmt = logging.Formatter(
         fmt="%(asctime)s %(name)-22s %(levelname)-6s %(message)s",
         datefmt="%m-%d %H:%M:%S",
@@ -29,6 +34,7 @@ def setup_logging(logfile: str | None = None, console: bool = True) -> logging.L
         )
         fh.setFormatter(fmt)
         fh.setLevel(MAIN)
+        fh._hichap = True
         root.addHandler(fh)
 
         def excepthook(tp, value, tb):
@@ -42,5 +48,6 @@ def setup_logging(logfile: str | None = None, console: bool = True) -> logging.L
         ch = logging.StreamHandler()
         ch.setFormatter(fmt)
         ch.setLevel(MAIN)
+        ch._hichap = True
         root.addHandler(ch)
     return get_logger()

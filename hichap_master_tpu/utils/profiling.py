@@ -2,7 +2,7 @@
 
 ``stage`` is a context manager that logs wall time per pipeline stage and
 accumulates a metrics dict; ``trace`` optionally wraps a block in a
-``jax.profiler`` trace for TPU timeline inspection.
+``jax.profiler`` trace for device timeline inspection.
 """
 
 from __future__ import annotations

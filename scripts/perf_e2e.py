@@ -14,9 +14,9 @@ is the corresponding order of post-filter contacts.
 The bed→matrix stage is where ingestion lives; ``parse_only_s`` isolates
 the pure parse share of that wall.
 
-Writes .perf_e2e.json (picked up by bench.py as the ``hg19_e2e_s`` extra).
+Prints the stage walls as one JSON line at the end.
 
-    python scripts/perf_e2e.py                      # full, on the chip
+    python scripts/perf_e2e.py                      # full, on a GPU
     PERF_SCALE=64 PERF_E2E_PAIRS=2e5 JAX_PLATFORMS=cpu python scripts/perf_e2e.py
 """
 
@@ -51,41 +51,18 @@ def timed(label, key, fn):
 
 
 def gen_beds(rep_dir: str, rng) -> str:
-    """~PAIRS valid pairs in the 15-column bed format, written in chunks.
+    """PAIRS valid pairs in the 15-column bed format: 75% intra with
+    log-uniform distances 1 kb-5 Mb, 25% inter uniform — the shape that
+    stresses both the banded tile mass and the scattered trans pixels."""
+    from hichap_master_tpu.testing.synthetic import (power_law_pairs,
+                                                     write_valid_bed_bulk)
 
-    75% intra with a power-law distance profile (most within the 2 Mb loop
-    band), 25% inter uniform — the shape that stresses both the banded
-    tile mass and the scattered trans pixels."""
     os.makedirs(rep_dir, exist_ok=True)
     labels = list(CHROMS)
-    sizes = np.asarray([CHROMS[c] for c in labels], np.int64)
-    weight = sizes / sizes.sum()
     path = os.path.join(rep_dir, "E2E_R1_Valid.bed")
-    chunk = 2_000_000
-    lab = np.asarray(labels)
-    with open(path, "w") as f:
-        done = 0
-        while done < PAIRS:
-            m = min(chunk, PAIRS - done)
-            c1 = rng.choice(len(labels), m, p=weight)
-            p1 = (rng.random(m) * (sizes[c1] - 1)).astype(np.int64) + 1
-            intra = rng.random(m) < 0.75
-            c2 = np.where(intra, c1, rng.choice(len(labels), m, p=weight))
-            # power-law distances, clipped into the chromosome
-            d = (np.exp(rng.uniform(np.log(1e3), np.log(5e6), m))
-                 ).astype(np.int64)
-            p2_intra = np.clip(p1 + np.where(rng.random(m) < 0.5, d, -d),
-                               1, sizes[c1] - 1)
-            p2_inter = (rng.random(m) * (sizes[c2] - 1)).astype(np.int64) + 1
-            p2 = np.where(intra, p2_intra, p2_inter)
-            import pandas as pd
-            df = pd.DataFrame({
-                0: "r", 1: lab[c1], 2: 0, 3: p1, 4: 100, 5: -10, 6: p1,
-                7: 0, 8: lab[c2], 9: 16, 10: p2, 11: 100, 12: -12, 13: p2,
-                14: 0,
-            })
-            df.to_csv(f, sep="\t", header=False, index=False)
-            done += m
+    cols = power_law_pairs(rng, np.asarray([CHROMS[c] for c in labels]),
+                           PAIRS)
+    write_valid_bed_bulk(path, labels, *cols)
     print(f"generated {PAIRS/1e6:.1f}M pairs "
           f"({os.path.getsize(path)/2**30:.2f} GB)", flush=True)
     return path
@@ -100,14 +77,9 @@ def main():
     if os.environ.get("PERF_VERBOSE") == "1":
         logging.basicConfig(level=21, stream=sys.stdout,
                             format="%(name)s: %(message)s")
-    cache = os.path.join(_REPO, ".jax_cache")
-    os.makedirs(cache, exist_ok=True)
-    try:
-        jax.config.update("jax_compilation_cache_dir", cache)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-        jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
-    except Exception:
-        pass
+    from hichap_master_tpu.utils.device import setup_compile_cache
+
+    setup_compile_cache()
 
     from hichap_master_tpu.core import Genome
     from hichap_master_tpu.io.bedio import iter_valid_bed
@@ -181,15 +153,13 @@ def main():
     RESULTS["total_s"] = round(total, 1)
     RESULTS["pairs"] = PAIRS
     RESULTS["scale_divisor"] = _S
-    RESULTS["backend"] = jax.default_backend()
+    RESULTS["device"] = jax.devices()[0].device_kind
     RESULTS["ingestion_share_of_matrix"] = round(
         RESULTS["parse_only_s"] / max(RESULTS["matrix_s"], 1e-9), 3)
     print(f"\nTRUE E2E (beds → coolers → calls) at hg19"
           f"{'/' + str(_S) if _S > 1 else ''}: {total:.1f} s "
           f"(+{RESULTS['parse_only_s']:.0f}s pure parse inside matrix)",
           flush=True)
-    with open(os.path.join(_REPO, ".perf_e2e.json"), "w") as f:
-        json.dump(RESULTS, f)
     print(json.dumps(RESULTS), flush=True)
 
 

@@ -16,8 +16,8 @@ point is that it RUNS, bounded, at rates recorded here.
     PERF_HAP_BED=/tmp/perf_hap_XXX/rep1   reuse generated beds
     PERF_HAP_DIV=4                        divide pair counts (quick mode)
 
-Bed generation is untimed setup.  Stage walls print at the end and land
-in .perf_e2e_hap.json.
+Bed generation is untimed setup.  Stage walls print at the end, then one
+JSON line.
 """
 
 import json
@@ -52,46 +52,23 @@ def log(msg):
     print(f"[{time.strftime('%H:%M:%S')}] {msg}", flush=True)
 
 
-def _gen_pairs(rng, labels, sizes, n, intra_frac=0.75):
-    """Realistic pair columns: cauchy-tailed intra distances + uniform
-    inter, weighted by chromosome length."""
-    w = sizes / sizes.sum()
-    c1 = rng.choice(len(labels), n, p=w).astype(np.int32)
-    intra = rng.random(n) < intra_frac
-    c2 = np.where(intra, c1, rng.choice(len(labels), n, p=w)).astype(np.int32)
-    p1 = (rng.random(n) * sizes[c1]).astype(np.int64)
-    d = np.abs(rng.standard_cauchy(n) * 200_000).astype(np.int64)
-    p2 = np.where(intra, np.minimum(p1 + d, sizes[c1] - 1),
-                  (rng.random(n) * sizes[c2]).astype(np.int64))
-    return c1, p1, c2, p2
-
-
-def _write_bed(path, labels, cols, tags=None):
-    import pandas as pd
-
-    c1, p1, c2, p2 = cols
-    df = {"c1": labels[c1], "p1": p1, "c2": labels[c2], "p2": p2}
-    if tags is not None:
-        df["tag"] = tags
-    pd.DataFrame(df).to_csv(path, sep="\t", header=False, index=False)
-
-
 def generate_beds(rep_dir):
+    from hichap_master_tpu.testing.synthetic import (power_law_pairs,
+                                                     write_allelic_bed_bulk)
+
     os.makedirs(rep_dir, exist_ok=True)
     rng = np.random.default_rng(42)
-    labels = np.array(list(CHROMS), dtype=object)
+    labels = list(CHROMS)
     sizes = np.array(list(CHROMS.values()), np.int64)
     for cls, n, tagged in (("Bi_Allelic", N_BI, False), ("M_M", N_MM, True),
                            ("P_P", N_PP, True), ("M_P", N_MP, False),
                            ("P_M", N_PM, False)):
-        cols = _gen_pairs(rng, labels, sizes, n)
-        tags = None
-        if tagged:
-            # ~40% both-side reads; the rest split R1/R2 single-side
-            tags = rng.choice(np.array(["Both", "R1", "R2"], dtype=object),
-                              n, p=[0.4, 0.3, 0.3])
-        _write_bed(os.path.join(rep_dir, f"HAP_R1_Valid_{cls}.bed"),
-                   labels, cols, tags)
+        cols = power_law_pairs(rng, sizes, n)
+        # ~40% both-side reads; the rest split R1/R2 single-side
+        tags = rng.choice(3, n, p=[0.4, 0.3, 0.3]) if tagged else None
+        write_allelic_bed_bulk(
+            os.path.join(rep_dir, f"HAP_R1_Valid_{cls}.bed"), labels, *cols,
+            tags=tags)
         log(f"  wrote {cls}: {n/1e6:.1f}M rows")
     with open(os.path.join(rep_dir, "genomeSize"), "w") as f:
         for c, l in CHROMS.items():
@@ -101,14 +78,9 @@ def generate_beds(rep_dir):
 def main():
     import jax
 
-    cache = os.path.join(_REPO, ".jax_cache")
-    os.makedirs(cache, exist_ok=True)
-    try:
-        jax.config.update("jax_compilation_cache_dir", cache)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-        jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
-    except Exception:
-        pass
+    from hichap_master_tpu.utils.device import setup_compile_cache
+
+    setup_compile_cache()
 
     from hichap_master_tpu.pipeline.matrix import haplotype_matrix_construction
     from hichap_master_tpu.utils import profiling
@@ -127,7 +99,7 @@ def main():
     gb = sum(os.path.getsize(os.path.join(rep, f))
              for f in os.listdir(rep)) / 2**30
     log(f"beds {gb:.2f} GB, {total_rows/1e6:.1f}M pairs; "
-        f"backend {os.environ.get('JAX_PLATFORMS', 'device')}")
+        f"device {jax.devices()[0].device_kind}")
 
     out_dir = tempfile.mkdtemp(prefix="perf_hap_out_")
     profiling.reset_metrics()
@@ -143,7 +115,7 @@ def main():
     # top-level stages per replicate: build[rep] (wraps the hap.* passes),
     # two_step_correction, cooler_write (wraps ice.*/write_cooler/balance).
     # Only those three PARTITION total_s; the rest are nested detail and
-    # summing everything double-counts (round-4 verdict item 3).
+    # summing everything double-counts.
     top = [k for k in walls
            if k.startswith("matrix.build[")
            or k in ("matrix.two_step_correction", "matrix.cooler_write")]
@@ -164,13 +136,11 @@ def main():
         f"({total_rows/1e6:.1f}M pairs → {cool_gb:.2f} GB coolers)")
     rec = {"total_s": round(total, 1), "pairs": total_rows,
            "div": DIV, "coolers_gb": round(cool_gb, 2),
-           "backend": jax.default_backend(),
+           "device": jax.devices()[0].device_kind,
            "top_stage_sum_s": round(stage_sum, 1),
            "top_stage_keys": sorted(top),
            **{k: round(v, 1) for k, v in walls.items()}}
-    with open(os.path.join(_REPO, ".perf_e2e_hap.json"), "w") as f:
-        json.dump(rec, f)
-    log("written to .perf_e2e_hap.json")
+    print(json.dumps(rec), flush=True)
 
 
 if __name__ == "__main__":

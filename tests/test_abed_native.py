@@ -1,4 +1,4 @@
-"""Native allelic-bed columnizer (hicio_abed_*) vs the pandas fallback
+"""Native allelic-bed columnizer (hicio_abed_*) vs the Python fallback
 encoder: identical decoded columns, and strict-layout violations fall back
 cleanly (native returns None)."""
 
@@ -6,7 +6,7 @@ import numpy as np
 import pytest
 
 from hichap_master_tpu.io.native import get_lib, load_allelic_bed
-from hichap_master_tpu.pipeline.filtering import _load_frame_pandas
+from hichap_master_tpu.pipeline.filtering import _load_frame_fallback
 
 pytestmark = pytest.mark.skipif(get_lib() is None,
                                 reason="native hicio unavailable")
@@ -35,7 +35,7 @@ def _mk_bed(path, rng, n=400, cand_frac=0.3):
 def test_native_matches_pandas_encoder(tmp_path, rng):
     bed = _mk_bed(tmp_path / "a.bed", rng)
     n_cols, n_labels = load_allelic_bed(bed)
-    p_cols, p_labels = _load_frame_pandas(bed)
+    p_cols, p_labels = _load_frame_fallback(bed)
     assert sorted(n_labels) == sorted(p_labels)
     n_lab = np.array(n_labels + [""], dtype=object)
     p_lab = np.array(p_labels + [""], dtype=object)
@@ -48,11 +48,10 @@ def test_native_matches_pandas_encoder(tmp_path, rng):
 
 
 def test_pandas_fallback_handles_all_15_col_bed(tmp_path, rng):
-    # no candidate rows anywhere: pandas' C engine rejects usecols indices
-    # past the physical width (review find) — the fallback must re-read
-    # full-width, and decode identically to the native path
+    # no candidate rows anywhere: the fallback pads every missing tail
+    # and must decode identically to the native path
     bed = _mk_bed(tmp_path / "no_cand.bed", rng, n=50, cand_frac=0.0)
-    p_cols, p_labels = _load_frame_pandas(bed)
+    p_cols, p_labels = _load_frame_fallback(bed)
     n_cols, n_labels = load_allelic_bed(bed)
     assert sorted(n_labels) == sorted(p_labels)
     assert (p_cols[15] == -1).all() and (p_cols[22] == 0).all()

@@ -175,3 +175,34 @@ def test_allelic_tags_and_stream(tmp_path, genome):
     assert len(parts) == 3, "chunk_rows must bound the streamed block size"
     streamed = np.concatenate([pt[4] for pt in parts])
     np.testing.assert_array_equal(streamed, tag)
+
+
+def test_python_valid_parser_matches_native_chunk(genome):
+    """The Python fallback (_parse_valid_lines) against the native scanner
+    on one block: ragged 15/23-column rows, CRLF, blank lines, unknown and
+    chr-prefixed chromosomes."""
+    from hichap_master_tpu.io.bedio import _parse_valid_lines, label_index
+    from hichap_master_tpu.io.native import get_lib, parse_valid_chunk
+
+    if get_lib() is None:
+        pytest.skip("native hicio unavailable")
+    rng = np.random.default_rng(11)
+    names = ["1", "chr2", "chrUn", "2", "X9"]
+    rows = [_valid_line(names[rng.integers(0, 5)], rng.integers(0, 10**6),
+                        names[rng.integers(0, 5)], rng.integers(0, 10**6),
+                        int(rng.choice([15, 23]))) for _ in range(300)]
+    text = "\r\n".join(rows[:150]) + "\n\n" + "\n".join(rows[150:]) + "\n"
+    py = _parse_valid_lines(text.splitlines(keepends=True),
+                            label_index(genome))
+    nat = parse_valid_chunk(text.encode(), genome.labels)
+    for a, b in zip(py, nat):
+        np.testing.assert_array_equal(a, b)
+    assert len(py[0]) > 0
+
+
+def test_python_parsers_reject_short_rows():
+    from hichap_master_tpu.io.bedio import _split_rows
+
+    assert _split_rows(["a\tb\tc\td\n", "\n"], 4) == [["a", "b", "c", "d"]]
+    with pytest.raises(ValueError):
+        _split_rows(["a\tb\tc\n"], 4)

@@ -17,29 +17,8 @@ from hichap_master_tpu.models.compartment import (
     select_pc_new,
     single_chrom_compartment,
 )
-from hichap_master_tpu.testing.oracles import synthetic_contact_matrix
-
-
-def oracle_distance_decay(M, G):
-    """StructureFind.py:201-271 re-derived in numpy."""
-    size = M.shape[0]
-    b1, b2 = np.nonzero(M)
-    IF = M[b1, b2]
-    keep = ~np.isin(b2, G)
-    w = np.hstack([IF[keep], [0]])
-    d = np.hstack([np.abs(b2[keep] - b1[keep]), [size]])
-    db = np.bincount(d, w)
-    for i in range(size):
-        if i == 0:
-            gap_num = ((G >= 0) & (G <= size - 1)).sum()
-            bn = size - gap_num
-        else:
-            gs = ((G >= 0) & (G <= size - 1 - i)).sum()
-            ge = ((G >= i) & (G <= size - 1)).sum()
-            bn = 2.0 * (size - i) - gs - ge
-        if bn > 0:
-            db[i] = db[i] / bn
-    return db[:size]
+from hichap_master_tpu.testing.oracles import (oracle_distance_decay,
+                                               synthetic_contact_matrix)
 
 
 def _pad(M, N):

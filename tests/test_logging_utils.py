@@ -50,3 +50,19 @@ def test_excepthook_records_traceback(tmp_path):
 def test_get_logger_namespace():
     assert get_logger().name == "hichap_master_tpu"
     assert get_logger("x.y").name == "x.y"
+
+
+def test_setup_twice_keeps_one_set_of_handlers(tmp_path):
+    try:
+        setup_logging(str(tmp_path / "a.log"))
+        setup_logging(str(tmp_path / "b.log"))
+        mine = [h for h in logging.getLogger().handlers
+                if getattr(h, "_hichap", False)]
+        assert len(mine) == 2  # one file, one console
+        get_logger().log(MAIN, "only-in-b")
+        for h in mine:
+            h.flush()
+        assert "only-in-b" in open(tmp_path / "b.log").read()
+        assert "only-in-b" not in open(tmp_path / "a.log").read()
+    finally:
+        _teardown()

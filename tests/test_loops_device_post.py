@@ -150,7 +150,11 @@ def test_batch_overflow_falls_back_per_chrom(params, monkeypatch):
         return got
 
     monkeypatch.setattr(L, "_post_device_batch", overflow_first)
+    from hichap_master_tpu.utils import profiling
+
+    profiling.reset_metrics("loops.post_overflow")
     dev = pcaller_multi(inputs, RES, params)
+    assert profiling.metrics()["loops.post_overflow"] == 1
     for c in sizes:
         assert set(dev[c][0]) == set(host[c][0]), c
         assert set(dev[c][1]) == set(host[c][1]), c
@@ -159,9 +163,9 @@ def test_batch_overflow_falls_back_per_chrom(params, monkeypatch):
 
 
 def test_bh_flat_cap_loops_rows_identically(rng, monkeypatch):
-    """The remote-compiler guard (HICHAP_BH_FLAT_MAX) must not change any
-    q-value: per-row poisson_bh_chunked_jax over disjoint segments equals
-    the flat segmented-sort batch program exactly."""
+    """The batched post sorts all rows as one flat segmented program; it
+    must not change any q-value: per-row poisson_bh_chunked_jax over
+    disjoint segments equals the flat segmented-sort batch exactly."""
     import jax.numpy as jnp
 
     from hichap_master_tpu.ops.stats_jax import (poisson_bh_chunked_jax,

@@ -2,9 +2,9 @@
 
 The reference fetches dense matrices through the cooler package on the host
 (HiCHap/matrixBuilding.py:699-714 balances via cooler; StructureFind.py:854
-reads cooler matrices).  Here matrices materialize ON DEVICE, and the upload
-strategy matters on TPU: device scatter serializes per update, so small-P
-squares densify host-side and ship in the narrowest exact dtype.  These tests
+reads cooler matrices).  Here matrices materialize ON DEVICE: small-P
+squares densify host-side and ship in the narrowest exact dtype, large ones
+upload as COO and scatter on device.  These tests
 pin that every strategy produces the same symmetric dense matrix.
 """
 

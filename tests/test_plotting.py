@@ -60,3 +60,15 @@ def test_loops_plot(cool, tmp_path):
     out = str(tmp_path / "LP")
     run_loops(cool, RES, False, out, loop_strength=4, plot=True)
     assert _find_pdfs(tmp_path), "loops plot PDF missing"
+
+
+def test_plot_without_matplotlib_says_so(monkeypatch):
+    import sys
+
+    import pytest
+
+    from hichap_master_tpu.utils.optional import require_matplotlib
+
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    with pytest.raises(ImportError, match="--plot needs matplotlib"):
+        require_matplotlib()
